@@ -7,7 +7,7 @@ collective.c:10865), timed through tests/ref_binary.py's ctypes harness
 at the same shapes.
 
 The reference serves one query per call (OpenMP gemv + argpartition);
-the TPU path batches queries into one fused matmul + top_k dispatch
+the device path batches queries into one fused matmul + top_k dispatch
 (ops/predict.py), so the comparison is throughput (queries/s), each side
 driven the way its API is meant to be used.  The timed loops deliberately
 let batches PIPELINE on device (repeat dispatches, one trailing fence) —
@@ -73,7 +73,7 @@ def run(res, tr_rows, tr_cols, tr_vals, m, n, k):
     biasAj, biasBj = jnp.asarray(biasA), jnp.asarray(biasB)
 
     def fence(x):
-        return float(jnp.sum(x.astype(jnp.float32)))
+        jax.block_until_ready(x)
 
     out = {}
 
@@ -214,7 +214,7 @@ def run_implicit(tr_rows, tr_cols, tr_vals, m, n, k=50, lam=5.0,
     Bj = jnp.asarray(B)
 
     def fence(x):
-        return float(jnp.sum(x.astype(jnp.float32)))
+        jax.block_until_ready(x)
 
     out = {}
     Q = 256  # users per dispatch: scores are Q x n = 256 x 160k f32
@@ -310,8 +310,7 @@ def main():
     m, n, k = 69878, 10677, 50
     from bench import _cached, make_ml10m_shaped
 
-    rows, cols, vals = _cached(make_ml10m_shaped,
-                               "/tmp/cmfrec_bench_ml10m.npz")
+    rows, cols, vals = _cached(make_ml10m_shaped, "ml10m.npz")
     res = {
         "A": 0.3 * rng.normal(size=(m, k)).astype(np.float32),
         "B": 0.3 * rng.normal(size=(n, k)).astype(np.float32),

@@ -1,4 +1,4 @@
-"""cmfrec_tpu — TPU-native collective matrix factorization.
+"""cmfrec_tpu — collective matrix factorization in JAX, for NVIDIA GPUs.
 
 A brand-new JAX/XLA implementation of the cmfrec model zoo (explicit and
 implicit collective matrix factorization, offsets/content-based cold-start

@@ -1,8 +1,8 @@
-"""Degree-bucketed padded CSR — the TPU-native sparse interaction layout.
+"""Degree-bucketed padded CSR — the accelerator's sparse interaction layout.
 
 The reference keeps a dual CSR+CSC copy of X and dispatches per-row solves
 dynamically over OpenMP threads (/root/reference/src/collective.c:6452,
-/root/reference/src/common.c:2922).  A TPU needs static shapes and batched
+/root/reference/src/common.c:2922).  An XLA device needs static shapes and batched
 work instead, so we:
 
   1. sort rows by nnz (descending),
@@ -96,9 +96,9 @@ def _optimal_boundaries(sorted_counts: np.ndarray, row_block: int,
                         min_width: int, max_chunks: int, lane: int = 8):
     """Slot-optimal bucket boundaries.
 
-    The gather engine is ENTRY-RATE-bound (~4.3 ns per padded slot on
-    v5e), so total padded slots Σ R·w — not alignment or row bytes — set
-    the iteration time.  Power-of-two widths waste ~1.45x; this DP picks
+    The gather engine's time is taken to scale with the total padded
+    slots Σ R·w (its rate on the GPU is not measured), so the planner
+    minimizes those rather than alignment or row bytes.  Power-of-two widths waste ~1.45x; this DP picks
     ≤``max_chunks`` contiguous chunks of the degree-sorted rows minimizing
     Σ ceil(R/row_block)·row_block · roundup(max_count, lane), which lands
     at ~1.15-1.2x on power-law data with the same chunk count (ML10M /
@@ -115,7 +115,7 @@ def _optimal_boundaries(sorted_counts: np.ndarray, row_block: int,
     # candidate boundaries: starts of distinct-value runs (+ n); the DP is
     # O(K·C²) so subsample BOTH ends when there are too many — power-law
     # data can have thousands of distinct degrees >=128 in the head, and
-    # the planner runs on a 1-core host
+    # the planner runs on the host in every fit
     _, first_idx = np.unique(-sc, return_index=True)
     cand = np.unique(np.concatenate([first_idx, [n]]))
     if cand.size > 400:

@@ -4,7 +4,7 @@ API-compatible with the reference's classes of the same names
 (/root/reference/cmfrec/__init__.py:2446 CMF, :4358 CMF_implicit): same
 constructor hyperparameters, same fitted attributes, same
 fit/predict/topN/factors_warm/factors_cold surface.  The fitting engine is
-the TPU ALS driver (solvers/drivers.py, solvers/collective.py) rather than
+the JAX ALS driver (solvers/drivers.py, solvers/collective.py) rather than
 the reference's OpenMP C core.
 """
 

@@ -1,7 +1,8 @@
 """ctypes loader for the native data layer (bucketize.cpp).
 
 Compiles the C++ source on first use with the system toolchain and caches
-the shared object under ~/.cache/cmfrec_tpu keyed by a source hash, so the
+the shared object under .native_cache/ at the checkout root, keyed by a
+source hash, so the
 package needs no build step (pybind11 is not assumed; the C ABI + ctypes
 is the binding layer).  Falls back to pure NumPy if no compiler is
 available — callers check ``get_lib() is not None``.
@@ -34,7 +35,8 @@ def _cache_path() -> str:
         h = hashlib.sha256(f.read()).hexdigest()[:16]
     d = os.environ.get(
         "CMFREC_TPU_NATIVE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "cmfrec_tpu"),
+        os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))), ".native_cache"),
     )
     os.makedirs(d, exist_ok=True)
     return os.path.join(d, f"libbucketize-{h}.so")

@@ -1,212 +1,224 @@
-"""Fused masked-Gram Pallas kernels — the MXU hot path of dense ALS.
+"""Masked-Gram products — the hot path of the dense ALS engines.
 
 Every CG step of a dense-masked ALS half-iteration is
 
     out = ((Q @ Be^T) * W) @ Be          # [R,K],[S,K],[R,S] -> [R,K]
 
 (the dense-batch form of the reference's per-row normal equations,
-/root/reference/src/common.c:1098,2787).  Through XLA this materializes the
-[R, S] product in HBM twice (write + read ~ 8 bytes/entry); these kernels
-instead stream W tile-by-tile through VMEM and keep the [block_r, block_s]
-intermediate on-chip, so HBM traffic per matvec drops to one read of W
-(1-2 bytes/entry) — an ~8x cut that makes the fit compute-bound on the MXU.
+/root/reference/src/common.c:1098,2787).  Through XLA this writes the
+[R, S] f32 product to device memory and reads it back: XLA does not fuse a
+dot, a multiply and a second dot.  The bf16 path of ``masked_gram_matvec``
+is a Pallas kernel on the Triton route that keeps each [BLOCK_R, BLOCK_S]
+tile of the product in registers, so a matvec reads only W (1 byte per
+cell for the int8 mask) plus the small operands.  It has the shape of an
+attention kernel without the softmax.  ``masked_rhs`` is written the same
+way: XLA materializes the masked f32 values before its product.
 
-Kernels:
   * masked_gram_matvec:  ((Q Be^T) . W) Be           (CG operator)
   * masked_rhs:          ((X - mb) . W) Be           (CG right-hand side)
 
 X is stored *uncentered* in bf16 (explicit-feedback ratings on half-point
 grids are exactly representable), with the global mean and the opposing
 bias folded into mb[s] = mu + opp_bias[s]; W is an int8 0/1 mask when
-unweighted (exact) or the f32 weights.  The only inexactness of the bf16
-path is the rounding of the factor matrices themselves (~0.4% on the Gram),
-which perturbs each ridge solve far less than the CG truncation the
-reference already accepts (max_cg_steps=3).  Pass f32 Q/Be for an exact
-(multi-pass MXU) variant — used for the final polish iteration.
+unweighted or the f32 weights.  With bf16 Q/Be the products run on the
+tensor cores with f32 accumulation; the only inexactness is the rounding of
+the factor matrices themselves (~0.4% on the Gram), far less than the CG
+truncation the reference already accepts (max_cg_steps=3).  With f32 Q/Be
+the products are XLA's at Precision.HIGHEST (full f32, not TF32) — used by
+exact mode and the final polish iteration.
+
+On the CPU the kernel runs in Pallas interpret mode (tests only).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-import os
-
-# r3 TPU sweep (scripts/sweep_masked_kernel.py, dependency-chained timing at
-# the ML10M shape): BLOCK_R=1024 beats 512 at every stream width; at the
-# pad_dim-selected bs=2816 the int8-mask matvec is 5.40 ms.
-# r4 floor decomposition (scripts/sweep_kernel_probe{2,3}.py) KILLED the
-# r3 header's "5x above the HBM floor" narrative: the floor was computed
-# from HBM bytes (790 MB / 819 GB/s ~ 1.0 ms), but element-wise int8
-# consumption on this chip is ELEMENT-rate-bound, not byte-bound.
-# Measured: plain-XLA jnp.sum over the same int8 W takes 3.50 ms; a
-# pallas stream+reduce of W alone takes 4.28-4.57 ms across ALL block
-# geometries (512-8832 x 384-4096); a bf16 W (2x the bytes) costs only
-# 1.3 ms more, giving the rate model 4 ps/element + 1.7 ps/byte — the
-# per-element term dominates.  Within the kernel: full body 5.38 ms,
-# dots-only 5.25 ms (mask multiply ~0.13 ms, fused well), W-stream-only
-# 4.12 ms.  So the kernel sits ~1.25x above the irreducible W-stream
-# floor, and the gap IS the two MXU dots.  bf16-output dots
-# (preferred_element_type=bf16) are rejected by Mosaic ("matmul acc must
-# be 32-bit"); storing W pre-cast to bf16 gains nothing (5.49 ms).
-# Candidates that cannot win here: bit-packed masks (8x fewer bytes but
-# unpack pays the same per-element cost that dominates), gather-based
-# sparse (4.3 ns/slot x 10M = 43 ms), complement masking (98.7% dense).
-BLOCK_R = int(os.environ.get("CMFREC_TPU_BLOCK_R", "1024"))
-# Preferred inner (streamed) block widths; all multiples of 128 lanes.
-# Small widths cause an out-block revisit pipeline stall (measured 4-5x
-# slowdown at bs<=1024 on v5e), so candidates stay in [2048, 4096].
-_BS_CANDIDATES = (2816, 3072, 2560, 3328, 2048, 3584, 2304, 3840, 4096)
-_VMEM_LIMIT = 100 * 1024 * 1024
+# Tiles of the Triton kernels: each program owns BLOCK_R rows and walks the
+# streamed axis BLOCK_S columns at a time, accumulating [BLOCK_R, K] in
+# registers.  Powers of two, as Triton requires.  Chosen on an H100 at the
+# ML10M shape among (64|128) x (32|64|128) tiles (PERF.md).
+BLOCK_R = 64
+BLOCK_S = 128
+# A program may also own only 1/split of the streamed axis (partial sums
+# added by XLA afterwards), so that a short row axis still gives the card
+# _WAVES programs per SM (PERF.md: the R=n matvec at the ML10M shape).
+MAX_SPLIT = 4
+_WAVES = 4
+_NUM_WARPS = 4
+_NUM_STAGES = 3
+_HI = jax.lax.Precision.HIGHEST
 
 
-def pad_dim(dim: int, row_mult: int = 1) -> tuple[int, int]:
-    """Pad `dim` so it divides by BLOCK_R * row_mult and by some preferred
-    inner block (row_mult = mesh size when the row axis is device-sharded).
+def pad_dim(dim: int, row_mult: int = 1) -> int:
+    """Padded size of one side of the dense [m, n] form.
 
-    Returns (dim_padded, block_s_for_streaming_this_dim).
+    Each padded dimension is the row axis R of one orientation and the
+    streamed axis S of the other, so it must divide by BLOCK_R * row_mult
+    (row_mult = mesh size when the row axis is device-sharded: every
+    device's shard holds whole row blocks) and by BLOCK_S * MAX_SPLIT.
     """
-    row_req = BLOCK_R * max(row_mult, 1)
-    best = None
-    for bs in _BS_CANDIDATES:
-        # lcm step: both constraints are powers-of-two times small ints
-        step = int(np.lcm(bs, row_req))
-        padded = -(-dim // bs) * bs
-        if padded % row_req:
-            padded = -(-dim // step) * step
-        if best is None or padded < best[0]:
-            best = (padded, bs)
-    return best
+    step = math.lcm(BLOCK_R * max(row_mult, 1), BLOCK_S * MAX_SPLIT)
+    return -(-dim // step) * step
 
 
-def _matvec_kernel(q_ref, be_ref, w_ref, out_ref):
-    t = jnp.dot(q_ref[...], be_ref[...].T, preferred_element_type=jnp.float32)
-    w = w_ref[...]
-    if w.dtype == jnp.bfloat16 and be_ref.dtype == jnp.bfloat16:
-        # 2-pass VPU chain: cast t once, multiply in bf16 (the mask is 0/1
-        # or already-rounded weights, so bf16 multiply is exact w.r.t. the
-        # bf16 operand path)
-        t = t.astype(jnp.bfloat16) * w
-    else:
-        t = (t * w.astype(jnp.float32)).astype(be_ref.dtype)
-    contrib = jnp.dot(t, be_ref[...], preferred_element_type=jnp.float32)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        out_ref[...] = contrib
-
-    @pl.when(pl.program_id(1) != 0)
-    def _():
-        out_ref[...] = out_ref[...] + contrib
+def pad_k(k: int) -> int:
+    """Padded factor width: a power of two, at least 64 (Triton's tiles
+    are powers of two, and 64 fills a tensor-core tile)."""
+    return max(64, 1 << (int(k) - 1).bit_length())
 
 
-def _rhs_kernel(x_ref, w_ref, mb_ref, be_ref, out_ref):
-    v = x_ref[...].astype(jnp.float32) - mb_ref[...]
-    v = (v * w_ref[...].astype(jnp.float32)).astype(be_ref.dtype)
-    contrib = jnp.dot(v, be_ref[...], preferred_element_type=jnp.float32)
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():
-        out_ref[...] = contrib
-
-    @pl.when(pl.program_id(1) != 0)
-    def _():
-        out_ref[...] = out_ref[...] + contrib
+def _interpret() -> bool:
+    return jax.default_backend() == "cpu"
 
 
-@functools.partial(
-    jax.jit, static_argnames=("block_s", "interpret", "mesh", "axis")
-)
-def masked_gram_matvec(Q, Be, W, *, block_s: int, interpret: bool = False,
-                       mesh=None, axis: str = "d"):
-    """((Q @ Be^T) * W) @ Be, fused.  Q:[R,K] Be:[S,K] W:[R,S] -> [R,K] f32.
+@functools.cache
+def _sm_count() -> int:
+    """Streaming multiprocessors of the card (0 in interpret mode)."""
+    return 0 if _interpret() else jax.devices()[0].core_count
 
-    R % BLOCK_R == 0 and S % block_s == 0 are required (see pad_dim; with a
-    mesh, R % (BLOCK_R * n_dev) == 0).  W may be int8 (0/1 mask), bf16, or
-    f32; Q/Be bf16 for the fast path.  With ``mesh``, Q and W are row-sharded
-    over ``axis``, Be replicated, and each device runs the kernel on its row
-    shard — zero collectives (SURVEY.md §2.4 P1: the DP axis).
+
+def _split(R: int, S: int) -> int:
+    """How many programs share one row block's streamed axis."""
+    split = 1
+    while (split < MAX_SPLIT and (R // BLOCK_R) * split < _WAVES * _sm_count()
+           and S % (BLOCK_S * split * 2) == 0):
+        split *= 2
+    return split
+
+
+def _dot_operand(x):
+    """The CPU's XLA has no bf16 x bf16 -> f32 dot: there, bf16 operands
+    enter the products as the f32 values they represent."""
+    return x.astype(jnp.float32) if _interpret() else x
+
+
+def _tiles(j):
+    return pl.ds(pl.multiple_of(j * BLOCK_S, BLOCK_S), BLOCK_S)
+
+
+def _matvec_kernel(q_ref, be_ref, w_ref, out_ref, *, n_tiles, precision):
+    q = q_ref[...]
+
+    def body(j, acc):
+        sl = _tiles(j)
+        be = be_ref[sl, :]
+        t = pl.dot(q, be, trans_b=True, precision=precision)
+        t = (t * w_ref[:, sl].astype(jnp.float32)).astype(jnp.bfloat16)
+        return acc + pl.dot(t.astype(be.dtype), be, precision=precision)
+
+    acc = jnp.zeros(out_ref.shape, jnp.float32)
+    out_ref[...] = jax.lax.fori_loop(0, n_tiles, body, acc)
+
+
+def _rhs_kernel(x_ref, w_ref, mb_ref, be_ref, out_ref, *, n_tiles,
+                precision):
+    def body(j, acc):
+        sl = _tiles(j)
+        v = ((x_ref[:, sl].astype(jnp.float32) - mb_ref[0, sl][None, :])
+             * w_ref[:, sl].astype(jnp.float32)).astype(jnp.bfloat16)
+        be = be_ref[sl, :]
+        return acc + pl.dot(v.astype(be.dtype), be, precision=precision)
+
+    acc = jnp.zeros(out_ref.shape, jnp.float32)
+    out_ref[...] = jax.lax.fori_loop(0, n_tiles, body, acc)
+
+
+def _launch(kernel, name, R, S, K, blocks, *args):
+    """Run a row-block kernel over a [R, S] problem; ``blocks`` names each
+    operand's layout: "rows" [R, K], "tiles" [R, S], "cols" [S, K] or
+    "vec" [1, S].  Returns the [R, K] f32 result."""
+    if R % BLOCK_R or S % BLOCK_S or K != pad_k(K):
+        raise ValueError(f"unpadded shapes R={R} S={S} K={K}")
+    split = _split(R, S)
+    s_len = S // split
+    specs = {
+        "rows": pl.BlockSpec((BLOCK_R, K), lambda i, j: (i, 0)),
+        "tiles": pl.BlockSpec((BLOCK_R, s_len), lambda i, j: (i, j)),
+        "cols": pl.BlockSpec((s_len, K), lambda i, j: (j, 0)),
+        "vec": pl.BlockSpec((1, s_len), lambda i, j: (0, j)),
+    }
+    args = [a if b == "tiles" else _dot_operand(a)
+            for a, b in zip(args, blocks)]
+    precision = _HI if _interpret() else None
+    parts = pl.pallas_call(
+        functools.partial(kernel, n_tiles=s_len // BLOCK_S,
+                          precision=precision),
+        grid=(R // BLOCK_R, split),
+        in_specs=[specs[b] for b in blocks],
+        out_specs=pl.BlockSpec((None, BLOCK_R, K), lambda i, j: (j, i, 0)),
+        out_shape=jax.ShapeDtypeStruct((split, R, K), jnp.float32),
+        compiler_params=plt.CompilerParams(num_warps=_NUM_WARPS,
+                                           num_stages=_NUM_STAGES),
+        backend="triton",
+        interpret=_interpret(),
+        name=name,
+    )(*args)
+    return parts[0] if split == 1 else jnp.sum(parts, axis=0)
+
+
+@functools.partial(jax.jit, static_argnames=("mesh", "axis"))
+def masked_gram_matvec(Q, Be, W, *, mesh=None, axis: str = "d"):
+    """((Q @ Be^T) * W) @ Be.  Q:[R,K] Be:[S,K] W:[R,S] -> [R,K] f32.
+
+    R and S must be padded by pad_dim (with a mesh, R's shard on each
+    device too), K by pad_k.  W may be int8 (0/1 mask), bf16 or f32.  Q and
+    Be share one dtype: bf16 runs the fused Triton kernel (tensor cores,
+    f32 accumulation); f32 runs the plain XLA products at
+    Precision.HIGHEST, which beat a Triton kernel at full f32 precision on
+    the H100 (PERF.md).  With ``mesh``, Q and W are row-sharded over
+    ``axis``, Be replicated, and each device runs on its row shard — zero
+    collectives (SURVEY.md §2.4 P1: the DP axis).
     """
     if mesh is not None:
         from jax.sharding import PartitionSpec as P
 
-        run = jax.shard_map(
-            functools.partial(masked_gram_matvec, block_s=block_s,
-                              interpret=interpret),
+        return jax.shard_map(
+            masked_gram_matvec,
             mesh=mesh,
             in_specs=(P(axis), P(), P(axis)),
             out_specs=P(axis),
             check_vma=False,  # pallas_call outputs carry no vma info
-        )
-        return run(Q, Be, W)
-    R, K = Q.shape
-    S = Be.shape[0]
-    assert R % BLOCK_R == 0 and S % block_s == 0, (R, S, block_s)
-    # trace in 32-bit mode: under jax_enable_x64 the grid index maps produce
-    # i64, which Mosaic cannot legalize (the operands are f32/bf16/int8 and
-    # unaffected)
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            _matvec_kernel,
-            grid=(R // BLOCK_R, S // block_s),
-            in_specs=[
-                pl.BlockSpec((BLOCK_R, K), lambda i, j: (i, 0)),
-                pl.BlockSpec((block_s, K), lambda i, j: (j, 0)),
-                pl.BlockSpec((BLOCK_R, block_s), lambda i, j: (i, j)),
-            ],
-            out_specs=pl.BlockSpec((BLOCK_R, K), lambda i, j: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((R, K), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                vmem_limit_bytes=_VMEM_LIMIT,
-            ),
-            interpret=interpret,
         )(Q, Be, W)
+    Be = Be.astype(Q.dtype)
+    if Q.dtype == jnp.float32:
+        T = jnp.einsum("rk,sk->rs", Q, Be, precision=_HI)
+        return jnp.einsum("rs,sk->rk", T * W.astype(jnp.float32), Be,
+                          precision=_HI)
+    R, K = Q.shape
+    return _launch(_matvec_kernel, "masked_gram_matvec", R, Be.shape[0], K,
+                   ("rows", "cols", "tiles"), Q, Be, W)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("block_s", "interpret", "mesh", "axis")
-)
-def masked_rhs(X, W, mb, Be, *, block_s: int, interpret: bool = False,
-               mesh=None, axis: str = "d"):
-    """((X - mb[None, :]) * W) @ Be, fused.  X,W:[R,S] mb:[S] Be:[S,K].
-    With ``mesh``, X/W row-sharded over ``axis``, mb/Be replicated."""
+@functools.partial(jax.jit, static_argnames=("mesh", "axis"))
+def masked_rhs(X, W, mb, Be, *, mesh=None, axis: str = "d"):
+    """((X - mb[None, :]) * W) @ Be.  X,W:[R,S] mb:[S] Be:[S,K] -> [R,K] f32.
+
+    Shapes padded as for masked_gram_matvec.  bf16 Be runs the fused
+    Triton kernel, the masked values rounded to bf16 before the product;
+    f32 Be runs the plain XLA product at Precision.HIGHEST.  With
+    ``mesh``, X/W are row-sharded over ``axis``, mb/Be replicated."""
     if mesh is not None:
         from jax.sharding import PartitionSpec as P
 
-        run = jax.shard_map(
-            functools.partial(masked_rhs, block_s=block_s,
-                              interpret=interpret),
+        return jax.shard_map(
+            masked_rhs,
             mesh=mesh,
             in_specs=(P(axis), P(axis), P(), P()),
             out_specs=P(axis),
-            check_vma=False,  # pallas_call outputs carry no vma info
-        )
-        return run(X, W, mb, Be)
+            check_vma=False,
+        )(X, W, mb, Be)
+    mb = mb.astype(jnp.float32)
+    if Be.dtype == jnp.float32:
+        V = (X.astype(jnp.float32) - mb[None, :]) * W.astype(jnp.float32)
+        return jnp.einsum("rs,sk->rk", V, Be, precision=_HI)
     R, S = X.shape
-    K = Be.shape[1]
-    assert R % BLOCK_R == 0 and S % block_s == 0, (R, S, block_s)
-    mb2 = mb.astype(jnp.float32).reshape(1, S)
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            _rhs_kernel,
-            grid=(R // BLOCK_R, S // block_s),
-            in_specs=[
-                pl.BlockSpec((BLOCK_R, block_s), lambda i, j: (i, j)),
-                pl.BlockSpec((BLOCK_R, block_s), lambda i, j: (i, j)),
-                pl.BlockSpec((1, block_s), lambda i, j: (0, j)),
-                pl.BlockSpec((block_s, K), lambda i, j: (j, 0)),
-            ],
-            out_specs=pl.BlockSpec((BLOCK_R, K), lambda i, j: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((R, K), jnp.float32),
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                vmem_limit_bytes=_VMEM_LIMIT,
-            ),
-            interpret=interpret,
-        )(X, W, mb2, Be)
+    return _launch(_rhs_kernel, "masked_rhs", R, S, Be.shape[1],
+                   ("tiles", "tiles", "vec", "cols"), X, W,
+                   mb.reshape(1, S), Be)

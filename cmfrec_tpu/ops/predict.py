@@ -2,7 +2,7 @@
 
 The reference scores candidates with a gemv then partial-argsorts on the
 host (/root/reference/src/common.c:5066 predict_multiple, :5127 topN,
-qs_argpartition helpers.c:1567).  On TPU the whole ranking is one fused
+qs_argpartition helpers.c:1567).  Here the whole ranking is one fused
 matmul + jax.lax.top_k; masking handles include/exclude lists.  For a
 device mesh, B can be row-sharded and the per-shard top-k merged (P6 in
 SURVEY.md §2.4) — the einsum + top_k formulation below lets XLA insert that

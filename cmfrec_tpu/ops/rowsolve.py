@@ -1,4 +1,4 @@
-"""Batched per-row ridge solvers — the TPU replacement for the reference's
+"""Batched per-row ridge solvers — the device replacement for the reference's
 per-row OpenMP kernels.
 
 Every ALS half-iteration in cmfrec boils down to, for each row i:
@@ -16,7 +16,7 @@ model variant:
   NA-as-zero    cw = w - 1,        cv = w * x,         G0 += M^T M
 
 All rows in a padded bucket are solved together as one batched device
-program: gather -> batched Gram einsum -> batched Cholesky (MXU), or a
+program: gather -> batched Gram einsum -> batched Cholesky, or a
 fixed-step batched conjugate gradient (matching ``max_cg_steps``,
 /root/reference/src/common.c:1098), or batched coordinate descent for
 non-negativity / L1 (/root/reference/src/common.c:2131,2228).
@@ -65,7 +65,7 @@ def length_mask(length: jax.Array, width: int) -> jax.Array:
 def gather_rows(mat: jax.Array, idx: jax.Array, mxu_bf16: bool = False) -> jax.Array:
     """[S, K], [R, L] -> [R, L, K].  With mxu_bf16 the opposing matrix is
     cast to bf16 BEFORE the gather, halving both the gathered bytes and the
-    einsum traffic (products stay exact in the f32 MXU accumulator; only the
+    einsum traffic (products stay exact in the f32 accumulator; only the
     factor values round, ~0.4% — the same trade the dense engine makes)."""
     if mxu_bf16:
         mat = mat.astype(jnp.bfloat16)

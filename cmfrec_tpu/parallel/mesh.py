@@ -1,7 +1,7 @@
 """Device-mesh sharding for the ALS engine.
 
 The reference parallelizes with OpenMP threads over rows (SURVEY.md §2.4).
-The TPU-native equivalent is a 1-D data-parallel mesh axis ``d``:
+The device equivalent is a 1-D data-parallel mesh axis ``d``:
 
   * each bucket's row-dimension arrays (idx/val/length/factor blocks) are
     sharded along rows — buckets are padded to multiples of the mesh size
@@ -12,7 +12,7 @@ The TPU-native equivalent is a 1-D data-parallel mesh axis ``d``:
   * k x k Gram bases (BtB/CtC) are computed from a row-sharded matrix via a
     psum that XLA inserts automatically under jit.
 
-When n*k outgrows HBM, B can instead be row-sharded and the Gram/gather
+When n*k outgrows device memory, B can instead be row-sharded and the Gram/gather
 pattern turns into an all-gather per half-iteration (SURVEY.md §2.4 P7);
 `shard_opposing` exposes that layout.
 """
@@ -36,9 +36,10 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> Mesh:
     """Multi-host entry point (SURVEY §2.4 P5): initialize
     ``jax.distributed`` when running one process per host and return the
-    global 1-D data mesh spanning every chip in the slice.  Pass the
+    global 1-D data mesh spanning every device of every process.  Pass the
     returned mesh as ``mesh=`` to any fit driver/model — interaction
-    buckets and factor blocks shard over it, collectives ride ICI.
+    buckets and factor blocks shard over it; XLA hands the collectives to
+    NCCL (NVLink within a host).
 
     On a single process this skips initialization and returns the local
     mesh, so driver code is identical on 1 host and N hosts.

@@ -3,13 +3,13 @@
 The standard bucketed half-step keeps the opposing factor matrix B
 replicated on every device: gathers are local and the only collective is
 the psum behind shared Gram bases.  That breaks down when ``n·k`` (plus
-the transient gather slabs) no longer fits in one chip's HBM.
+the transient gather slabs) no longer fits in one device's memory.
 
 This module provides the big-axis escape hatch: B stays **row-sharded at
 rest and in transit**.  Each device holds one 1/D shard of B and its own
 1/D of the bucket rows; the per-row Gram/rhs systems are assembled by
 rotating the B shards around the ring (``ppermute`` over the mesh axis,
-riding ICI) and accumulating, at every stop, the contributions of the
+which XLA hands to NCCL) and accumulating, at every stop, the contributions of the
 slots whose column ids live in the visiting shard:
 
     for t in 0..D-1:                  # device d holds shard (d+t) mod D
@@ -20,12 +20,13 @@ slots whose column ids live in the visiting shard:
 No array of size n·k is ever materialized: peak per-device residency is
 ``n·k/D`` for the shard plus one ``R_loc·L·K`` gather slab.  The price is
 D masked passes over the local slots (each slot's column lives in exactly
-one shard, so D-1 of its visits contribute zeros) — gathers on TPU are
-entry-rate-bound, so the ring half-step costs ~D× the replicated one.
+one shard, so D-1 of its visits contribute zeros), so the ring
+half-step is expected to cost ~D× the replicated one (not measured on
+the GPU).
 Use it when B does not fit, not as the fast path.  The reference has no
 counterpart (its OpenMP solver assumes B in shared host memory, e.g.
 /root/reference/src/common.c:2922); this layout is what the same
-algorithm looks like on a TPU pod slice.
+algorithm looks like across devices that each hold a slice of B.
 
 Cholesky/CD only: truncated CG would need one ring per matvec (4·D
 passes), which is never the right trade — the driver raises on

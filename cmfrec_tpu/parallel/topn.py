@@ -1,6 +1,6 @@
 """Distributed top-N: sharded scoring + per-shard top-k + global merge.
 
-The TPU-native replacement for the reference's single-node gemv +
+The device replacement for the reference's single-node gemv +
 qs_argpartition ranking (/root/reference/src/common.c:5127-5370,
 /root/reference/src/helpers.c:1567): the item-factor matrix is row-sharded
 over the mesh, each shard computes its local top-k with jax.lax.top_k, and

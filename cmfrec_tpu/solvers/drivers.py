@@ -26,7 +26,13 @@ import numpy as np
 from ..utils.profiling import profiled_fit
 from ..utils.checkpoint import FitCheckpointer
 
-from ..config import SOLVER_PRECISION, resolve_dtype
+from ..config import (
+    SOLVER_PRECISION,
+    dense_budget_bytes as default_dense_budget,
+    exact_dense_enabled,
+    on_accelerator,
+    resolve_dtype,
+)
 from ..data.shards import BucketedRows, build_bucketed_rows
 from . import preprocess
 from .als import (
@@ -135,11 +141,11 @@ def _shard_driver_state(mesh, bucketed_list, block_lists, replicated_arrays):
 
 
 def _build_pair(rows, cols, vals_c, m, n, weights, dtype, row_block=None):
-    """Dual-orientation bucketed layout: device-side fill on TPU (one
+    """Dual-orientation bucketed layout: device-side fill on the GPU (one
     compact CSR upload), host fill elsewhere.  An explicit row_block
     (mesh-divisible) forces the host path."""
     if (row_block is None
-            and jax.default_backend() == "tpu"
+            and on_accelerator()
             and os.environ.get("CMFREC_TPU_DEVICE_FILL", "1") == "1"):
         from ..data.device_fill import build_bucketed_pair_device
 
@@ -183,7 +189,7 @@ def fit_explicit_als(
     verbose: bool = False,
     engine: str = "auto",  # "auto" | "sparse" | "dense"
     dense_budget_bytes: Optional[int] = None,
-    mesh=None,  # jax.sharding.Mesh for multi-chip DP (dense pallas engine)
+    mesh=None,  # jax.sharding.Mesh for multi-device data parallelism
     init=None,  # warm restart: dict(A=, B=[, biasA=, biasB=]) to continue
     # training from (the reference's reset_values=False)
     checkpoint_path: Optional[str] = None,  # mid-fit periodic checkpoints
@@ -191,7 +197,7 @@ def fit_explicit_als(
     shard_opposing_rows: bool = False,  # big-axis mode: keep the opposing
     # factor matrix row-sharded over the mesh and assemble row systems by
     # rotating its shards around the ring (parallel/ring.py).  Use when
-    # n*k (or m*k) no longer fits one chip's HBM; costs ~mesh-size masked
+    # n*k (or m*k) no longer fits one device's memory; costs ~mesh-size masked
     # gather passes per half-step.  Requires mesh= and use_cg=False.
 ) -> dict:
     lam6, l16 = _resolve_lambdas(lambda_, l1_lambda)
@@ -226,10 +232,9 @@ def fit_explicit_als(
         # nonneg models center like any other, but clamp the global mean
         # at zero (common.c:3599 `*glob_mean = fmax(*glob_mean, 0)`)
         glob_mean = max(glob_mean, 0.0)
-    # (vals - glob_mean) is computed LAZILY: the pallas engine ships RAW
-    # vals and folds the mean into its rhs kernel, so this full host pass
-    # over nnz entries (seconds at 10M+ on the 1-core host) would be dead
-    # work on the default TPU path
+    # (vals - glob_mean) is computed LAZILY: the fused engine ships RAW
+    # vals and folds the mean into its rhs, so this full host pass over
+    # nnz entries would be dead work on the GPU's default path
     _vc = [None]
 
     def _centered_vals():
@@ -238,13 +243,11 @@ def fit_explicit_als(
         return _vc[0]
 
     # Engine selection: the dense-masked engine turns the CG half-iterations
-    # into whole-matrix MXU products (see dense_engine.py) — dramatically
-    # faster than gather-based sparse solves whenever [m, n] fits in HBM.
+    # into whole-matrix products (see dense_engine.py) instead of gather-
+    # based sparse solves, whenever [m, n] fits the dense budget.
     from .dense_engine import estimate_dense_bytes
 
-    budget = dense_budget_bytes or int(
-        float(os.environ.get("CMFREC_TPU_DENSE_BUDGET_GB", "6.5")) * (1 << 30)
-    )
+    budget = dense_budget_bytes or default_dense_budget()
     if engine == "dense" and (nonneg or np.any(l16 > 0)):
         raise ValueError(
             "engine='dense' does not support nonneg/l1_lambda; "
@@ -253,18 +256,16 @@ def fit_explicit_als(
     # unweighted NA-as-zero has a shared-Gram closed form on the dense
     # engine (optimizeA case 3); weighted NA-as-zero stays bucketed
     na0_dense = NA_as_zero and weights is None
-    # use_cg=False fits ride the fused masked engine too on TPU, in exact
-    # mode: each half-step's CG runs to the per-row 1e-8 freeze under the
-    # Krylov step cap (dense_pallas._exact_cap) — Cholesky-quality
+    # use_cg=False fits ride the fused masked engine too on the GPU, in
+    # exact mode: each half-step's CG runs to the per-row 1e-8 freeze under
+    # the Krylov step cap (dense_pallas._exact_cap) — Cholesky-quality
     # solutions at masked-matvec cost instead of the bucketed engine's
     # nnz*k^2 Gram assembly.  engine="sparse" or
     # CMFREC_TPU_NO_EXACT_DENSE=1 keeps the per-row Cholesky path.
-    from ..config import exact_dense_enabled
-
     exact_pallas = (
         not use_cg
         and not NA_as_zero
-        and jax.default_backend() == "tpu"
+        and on_accelerator()
         and np.dtype(dtype) == np.float32
         and os.environ.get("CMFREC_TPU_NO_PALLAS", "0") != "1"
         and exact_dense_enabled()
@@ -277,7 +278,7 @@ def fit_explicit_als(
         and (not NA_as_zero or na0_dense)
         and estimate_dense_bytes(m, n, np.dtype(dtype).itemsize) <= budget
     )
-    # The fused-kernel engine is the TPU fast path; the XLA einsum
+    # The fused-kernel engine is the GPU fast path; the XLA einsum
     # engine remains for CPU runs and f64.  Its actual residency is the
     # PADDED dims in four arrays (bf16 X + mask W, both orientations), and
     # its int32 scatter index requires m_pad*n_pad < 2**31.
@@ -286,7 +287,7 @@ def fit_explicit_als(
     # trajectory reference-exact for the plain model, see solve_cg).  The
     # flag is inert without use_cg (the reference ignores it too).
     use_pallas = use_dense and (
-        jax.default_backend() == "tpu"
+        on_accelerator()
         and np.dtype(dtype) == np.float32
         and not (use_cg and precondition_cg)
         and os.environ.get("CMFREC_TPU_NO_PALLAS", "0") != "1"
@@ -294,8 +295,8 @@ def fit_explicit_als(
     if use_pallas:
         from ..ops.masked_matmul import pad_dim
 
-        m_pad = pad_dim(m)[0]
-        n_pad = pad_dim(n)[0]
+        m_pad = pad_dim(m)
+        n_pad = pad_dim(n)
         wbytes = 4 if weights is not None else 1
         pallas_bytes = m_pad * n_pad * (2 + wbytes) * 2
         if (m_pad * n_pad >= np.iinfo(np.int32).max
@@ -306,14 +307,14 @@ def fit_explicit_als(
     if NA_as_zero and use_dense and not use_pallas:
         if engine == "dense":
             raise ValueError(
-                "engine='dense' NA_as_zero requires the TPU pallas engine "
+                "engine='dense' NA_as_zero requires the fused GPU engine "
                 "(unweighted, f32); use engine='auto' or 'sparse'"
             )
         use_dense = False  # the XLA fallback engine lacks the na0 form
 
     biasA0 = biasB0 = None
     if (user_bias or item_bias) and not use_pallas:
-        # (the pallas engine computes starting biases on device)
+        # (the fused engine computes starting biases on device)
         biasA0, biasB0 = preprocess.initialize_biases(
             rows, cols, _centered_vals(), m, n,
             lam_user=lam6[0], lam_item=lam6[1],
@@ -414,10 +415,11 @@ def fit_explicit_als(
             lam_const_B = jnp.asarray(v, dtype)
             lam_vec_B = lam_vec_B.at[k].set(0.0)
 
-    # bf16 MXU operands on TPU for the CG iterations (f32 accumulate);
-    # Cholesky/final iterations stay f32 (exact polish, finalize_chol).
+    # bf16 matmul operands on the GPU for the CG iterations (f32
+    # accumulate); Cholesky/final iterations stay f32 (exact polish,
+    # finalize_chol).
     bf16_ok = (
-        jax.default_backend() == "tpu"
+        on_accelerator()
         and np.dtype(dtype) == np.float32
         and os.environ.get("CMFREC_TPU_NO_BF16", "0") != "1"
     )
@@ -448,7 +450,7 @@ def fit_explicit_als(
                 mask_A=mask_A, mask_B=mask_B,
             )
             if verbose:
-                _ = float(jnp.sum(A_blocks[-1]))  # fence the device queue
+                jax.block_until_ready(A_blocks)
                 print(f"iter {it + 1}/{niter} [{method}] {time.time() - t0:.3f}s")
             ckpt.maybe_save(it + 1, lambda: _sparse_fit_state(
                 A_blocks, B_blocks, perm_A, perm_B, m, n, k,
@@ -667,7 +669,7 @@ def fit_implicit_als(
     dtype=np.float32,
     seed: int = 1,
     verbose: bool = False,
-    mesh=None,  # jax.sharding.Mesh for multi-chip row-parallel solves
+    mesh=None,  # jax.sharding.Mesh for multi-device row-parallel solves
     init=None,  # warm restart: dict(A=, B=)
     checkpoint_path: Optional[str] = None,  # mid-fit periodic checkpoints
     checkpoint_every: int = 0,
@@ -698,28 +700,22 @@ def fit_implicit_als(
     if adjust_weight:
         w_main = len(vals) / (float(m) * float(n))
 
-    # Fused dense-confidence engine when the padded [m, n] form fits HBM
-    # (Wx/Xp bf16 + int8 mask, both orientations = 10 bytes/padded entry).
-    # use_cg=False rides it in exact mode (Krylov-capped converged CG,
-    # see fit_explicit_als) unless CMFREC_TPU_NO_EXACT_DENSE=1.
-    from ..config import exact_dense_enabled
-
+    # Fused dense-confidence engine when the padded [m, n] form fits the
+    # dense budget (Wx/Xp bf16 + int8 mask, both orientations = 10 bytes
+    # per padded entry).  use_cg=False rides it in exact mode (Krylov-capped
+    # converged CG, see fit_explicit_als) unless CMFREC_TPU_NO_EXACT_DENSE=1.
     if (mesh is None
-            and jax.default_backend() == "tpu"
+            and on_accelerator()
             and np.dtype(dtype) == np.float32
             and os.environ.get("CMFREC_TPU_NO_PALLAS", "0") != "1"
             and (use_cg or exact_dense_enabled())
             and not nonneg and not np.any(l16 > 0)):
         from ..ops.masked_matmul import pad_dim
 
-        m_pad = pad_dim(m)[0]
-        n_pad = pad_dim(n)[0]
-        budget = int(
-            float(os.environ.get("CMFREC_TPU_DENSE_BUDGET_GB", "6.5"))
-            * (1 << 30)
-        )
+        m_pad = pad_dim(m)
+        n_pad = pad_dim(n)
         if (m_pad * n_pad < np.iinfo(np.int32).max
-                and m_pad * n_pad * 10 <= budget):
+                and m_pad * n_pad * 10 <= default_dense_budget()):
             from .dense_pallas import fit_implicit_dense_pallas
 
             return fit_implicit_dense_pallas(
@@ -761,7 +757,7 @@ def fit_implicit_als(
     l1_vec_B = _make_l1_vec(k, k_pad, l16[3], 0.0, False, dtype)
 
     bf16_ok = (
-        jax.default_backend() == "tpu"
+        on_accelerator()
         and np.dtype(dtype) == np.float32
         and os.environ.get("CMFREC_TPU_NO_BF16", "0") != "1"
     )
@@ -790,7 +786,7 @@ def fit_implicit_als(
                 mask_A=mask_A, mask_B=mask_B,
             )
             if verbose:
-                _ = float(jnp.sum(A_blocks[-1]))  # fence the device queue
+                jax.block_until_ready(A_blocks)
                 print(f"iter {it + 1}/{niter} [{method}] {time.time() - t0:.3f}s")
             ckpt.maybe_save(it + 1, lambda: _sparse_fit_state(
                 A_blocks, B_blocks, perm_A, perm_B, m, n, k, False, False))
@@ -919,7 +915,7 @@ def _fit_explicit_dense(
     # iteration instead runs CG to convergence (30 steps on a
     # well-conditioned k x k ridge system reaches f32 machine precision),
     # which solves the identical linear systems without leaving the
-    # dense MXU path.
+    # dense path.
     try:
         for it in range(niter):
             final = finalize_chol and (it == niter - 1)

@@ -3,8 +3,8 @@
 The reference has no serialization in its C core — model state is plain
 arrays owned by the host language, and ``reset_values=false`` restarts a
 fit from caller-passed matrices (/root/reference/src/cmfrec.h:1858).  On
-TPU the analogous production need is stronger: long fits on preemptible
-hardware.  Every fit driver accepts
+an accelerator the analogous production need is stronger: long fits on
+preemptible hardware.  Every fit driver accepts
 
     checkpoint_path="ckpt.npz", checkpoint_every=N
 

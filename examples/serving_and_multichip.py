@@ -1,9 +1,9 @@
-"""Production-serving and multi-chip patterns.
+"""Production-serving and multi-device patterns.
 
 Demonstrates the round-2 surface: prediction-time caches, binary side
 info at inference, the production memory trim, and mesh-sharded fits.
 Runs on CPU (set JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
-to simulate 8 devices) or on TPU hardware unchanged.
+to simulate 8 devices) or on GPUs unchanged.
 """
 
 import numpy as np

@@ -239,7 +239,7 @@ if __name__ == "__main__":
 
 @pytest.mark.parametrize("implicit", [False, True])
 def test_fused_iteration_matches_unfused(rng, implicit, monkeypatch):
-    """CMFREC_TPU_FUSE_COLLECTIVE=1 (the TPU default: one jit per
+    """CMFREC_TPU_FUSE_COLLECTIVE=1 (the GPU default: one jit per
     iteration) must reproduce the per-bucket dispatch path exactly."""
     rows, cols, vals, U, I, m, n = make_data(rng, u_density=0.6)
     side_U = ingest_dense(U)

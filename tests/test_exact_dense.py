@@ -9,7 +9,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-INTERP = jax.default_backend() != "tpu"
 
 
 @pytest.fixture
@@ -66,7 +65,7 @@ def test_explicit_exact_one_iter_matches_bucketed_chol(rng):
         niter=1, max_cg_steps=3, finalize_chol=True, finalize_steps=5,
         user_bias=False, item_bias=False, glob_mean=0.0, scale_lam=False,
         scale_bias_const=False, biasA0=None, biasB0=None,
-        dtype=np.float32, seed=3, verbose=False, interpret=INTERP,
+        dtype=np.float32, seed=3, verbose=False,
         init=dict(A=A0, B=B0), exact=True)
     np.testing.assert_allclose(np.asarray(rp["B"], np.float64),
                                np.asarray(rb["B"], np.float64),
@@ -107,7 +106,7 @@ def test_explicit_exact_weighted_scale_lam(rng):
         niter=1, max_cg_steps=3, finalize_chol=True, finalize_steps=5,
         user_bias=True, item_bias=True, glob_mean=mu, scale_lam=True,
         scale_bias_const=False, biasA0=None, biasB0=None,
-        dtype=np.float32, seed=3, verbose=False, interpret=INTERP,
+        dtype=np.float32, seed=3, verbose=False,
         init=dict(A=A0, B=B0, biasA=bA, biasB=bB), exact=True)
     for key in ("A", "B", "biasA", "biasB"):
         np.testing.assert_allclose(np.asarray(rp[key], np.float64),
@@ -141,7 +140,7 @@ def test_collective_exact_one_iter_matches_bucketed_chol(rng):
         lam6=np.full(6, 0.5), w_user=1.0, w_item=1.0, max_cg_steps=3,
         finalize_chol=True, finalize_steps=5, glob_mean=0.0,
         scale_lam=False, scale_bias_const=False, verbose=False,
-        interpret=INTERP, add_implicit_features=True, w_implicit=0.5,
+        add_implicit_features=True, w_implicit=0.5,
         init=dict(A=A0, B=B0), exact=True, **kw)
     for key, tol in (("Bi", 1e-5), ("Ai", 1e-5), ("B", 2e-4), ("A", 2e-4)):
         b = np.asarray(res_b[key], np.float64)[:, :k]
@@ -171,7 +170,7 @@ def test_implicit_exact_one_iter_matches_bucketed_chol(rng):
         rows, cols, vals, m, n, k=k, lam6=np.full(6, 2.0), niter=1,
         max_cg_steps=3, finalize_steps=5, finalize_chol=False, alpha=0.5,
         w_main_multiplier=1.0, dtype=np.float32, seed=1, verbose=False,
-        interpret=INTERP, init=init, exact=True)
+        init=init, exact=True)
     np.testing.assert_allclose(np.asarray(rp["A"]), np.asarray(rb["A"]),
                                rtol=0, atol=2e-4)
     np.testing.assert_allclose(np.asarray(rp["B"]), np.asarray(rb["B"]),
@@ -219,7 +218,7 @@ def test_collective_implicit_exact_one_iter_matches_bucketed_chol(rng):
         lam6=np.full(6, lam), w_user=wu, w_item=1.0, niter=1,
         max_cg_steps=3, finalize_steps=5, finalize_chol=False, alpha=alpha,
         w_main_multiplier=1.0, dtype=np.float32, seed=1, verbose=False,
-        interpret=INTERP, init=dict(A=A0, B=B0), exact=True)
+        init=dict(A=A0, B=B0), exact=True)
     for key, tol in (("C", 1e-4), ("B", 2e-4), ("A", 2e-4)):
         b = np.asarray(res_b[key], np.float64)[:, :k]
         p = np.asarray(res_p[key], np.float64)[:, :k]
@@ -252,7 +251,7 @@ def test_collective_implicit_cg_one_iter_matches_bucketed_cg(rng):
         lam6=np.full(6, lam), w_user=wu, w_item=1.0, niter=1,
         max_cg_steps=3, finalize_steps=3, finalize_chol=True, alpha=alpha,
         w_main_multiplier=1.0, dtype=np.float32, seed=1, verbose=False,
-        interpret=INTERP, init=dict(A=A0, B=B0), exact=False)
+        init=dict(A=A0, B=B0), exact=False)
     for key, tol in (("C", 1e-4), ("B", 5e-4), ("A", 5e-4)):
         b = np.asarray(res_b[key], np.float64)[:, :k]
         p = np.asarray(res_p[key], np.float64)[:, :k]
@@ -261,7 +260,7 @@ def test_collective_implicit_cg_one_iter_matches_bucketed_cg(rng):
 
 @pytest.mark.slow
 def test_explicit_exact_multi_iter_quality(rng):
-    """Free-running exact-mode fit (bf16 bulk + f32 final, like the TPU
+    """Free-running exact-mode fit (bf16 bulk + f32 final, like the GPU
     path) reaches the bucketed Cholesky engine's quality."""
     from cmfrec_tpu.solvers import drivers
     from cmfrec_tpu.solvers.dense_pallas import fit_explicit_dense_pallas
@@ -296,7 +295,7 @@ def test_explicit_exact_multi_iter_quality(rng):
         niter=12, max_cg_steps=3, finalize_chol=True, finalize_steps=5,
         user_bias=True, item_bias=True, glob_mean=mu, scale_lam=False,
         scale_bias_const=False, biasA0=bA, biasB0=bB,
-        dtype=np.float32, seed=3, verbose=False, interpret=INTERP,
+        dtype=np.float32, seed=3, verbose=False,
         init=init, exact=True)
 
     def pred(res):
@@ -343,7 +342,7 @@ def test_collective_side_info_one_iter_pins_C_and_D(rng):
         lam6=np.full(6, 0.5), w_user=0.8, w_item=0.7, max_cg_steps=3,
         finalize_chol=True, finalize_steps=5, glob_mean=0.0,
         scale_lam=False, scale_bias_const=False, verbose=False,
-        interpret=INTERP, init=dict(A=A0, B=B0), exact=True, **kw)
+        init=dict(A=A0, B=B0), exact=True, **kw)
     for key, tol in (("C", 1e-4), ("D", 1e-4), ("B", 2e-4), ("A", 2e-4)):
         b = np.asarray(res_b[key], np.float64)[:, :k]
         pp = np.asarray(res_p[key], np.float64)[:, :k]

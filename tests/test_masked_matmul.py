@@ -1,18 +1,26 @@
-"""Oracle tests for the fused Pallas kernels (interpret mode on CPU)."""
+"""Oracle tests for the fused masked-Gram kernel (Pallas interpret mode on
+the CPU), the padding rules around it, and the dense engines built on it."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cmfrec_tpu.ops import masked_matmul
 from cmfrec_tpu.ops.masked_matmul import (
     BLOCK_R,
+    BLOCK_S,
+    MAX_SPLIT,
     masked_gram_matvec,
     masked_rhs,
     pad_dim,
+    pad_k,
 )
 
-INTERP = jax.default_backend() != "tpu"
+HI = jax.lax.Precision.HIGHEST
+# bf16 operands round the factors (~0.4% on each product); f32 operands run
+# at Precision.HIGHEST and differ from the reference by summation order only
+TOL = {jnp.bfloat16: 1e-2, jnp.float32: 1e-5}
 
 
 @pytest.fixture
@@ -20,50 +28,164 @@ def rng():
     return np.random.default_rng(7)
 
 
-def test_pad_dim_constraints():
-    for dim in (60, 513, 10677, 69878, 2048, 100000):
-        padded, bs = pad_dim(dim)
-        assert padded >= dim
-        assert padded % BLOCK_R == 0
-        assert padded % bs == 0
-        assert bs % 128 == 0
+@pytest.fixture
+def gpu():
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: JAX_PLATFORMS=cuda python -m pytest -m gpu")
 
 
-def _mk(rng, R, S, K, w_int8=True):
-    Q = jnp.asarray(rng.normal(size=(R, K)), jnp.float32)
-    Be = jnp.asarray(rng.normal(size=(S, K)), jnp.float32)
+def _padded_problem(rng, R, S, k, w_dtype, op_dtype):
+    """A ragged [R, S] problem zero-padded to the kernel's shapes; returns
+    the padded device operands and the unpadded f64 originals."""
+    Rp, Sp, Kp = pad_dim(R), pad_dim(S), pad_k(k)
+    Q = rng.normal(size=(R, k))
+    Be = rng.normal(size=(S, k))
     mask = rng.uniform(size=(R, S)) < 0.3
-    if w_int8:
-        W = jnp.asarray(mask, jnp.int8)
-    else:
-        W = jnp.asarray(mask * rng.uniform(0.5, 2.0, size=(R, S)), jnp.float32)
-    return Q, Be, W
+    W = mask * (1.0 if w_dtype == jnp.int8 else rng.uniform(0.5, 2.0, (R, S)))
+    if w_dtype == jnp.bfloat16:
+        W = np.asarray(jnp.asarray(W, jnp.bfloat16), np.float64)
+
+    def pad(x, shape, dt):
+        out = np.zeros(shape)
+        out[tuple(slice(0, d) for d in x.shape)] = x
+        return jnp.asarray(out, dt)
+
+    dev = (pad(Q, (Rp, Kp), op_dtype), pad(Be, (Sp, Kp), op_dtype),
+           pad(W, (Rp, Sp), w_dtype))
+    return dev, (Q, Be, W)
 
 
-@pytest.mark.parametrize("w_int8", [True, False])
-def test_masked_gram_matvec_matches_einsum(rng, w_int8):
-    R, S, K = BLOCK_R, 2048, 64
-    Q, Be, W = _mk(rng, R, S, K, w_int8)
-    out = masked_gram_matvec(Q, Be, W, block_s=1024, interpret=INTERP)
-    Wf = W.astype(jnp.float32)
-    big = jnp.einsum("rk,sk->rs", Q, Be) * Wf
-    ref = jnp.einsum("rs,sk->rk", big, Be)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-4, atol=1e-3)
+@pytest.mark.parametrize("op_dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("w_dtype", [jnp.int8, jnp.bfloat16, jnp.float32])
+def test_masked_gram_matvec_matches_einsum(rng, w_dtype, op_dtype):
+    R, S, k = 100, 300, 51
+    (Qd, Bd, Wd), (Q, Be, W) = _padded_problem(rng, R, S, k, w_dtype,
+                                               op_dtype)
+    out = np.asarray(masked_gram_matvec(Qd, Bd, Wd))
+    assert out.shape == Qd.shape and out.dtype == np.float32
+    ref = np.asarray(jnp.einsum(
+        "rs,sk->rk",
+        jnp.einsum("rk,sk->rs", jnp.asarray(Q, jnp.float32),
+                   jnp.asarray(Be, jnp.float32), precision=HI)
+        * jnp.asarray(W, jnp.float32),
+        jnp.asarray(Be, jnp.float32), precision=HI))
+    err = np.linalg.norm(out[:R, :k] - ref) / np.linalg.norm(ref)
+    assert err <= TOL[op_dtype], err
+    # zero padding stays zero: padded rows and factor columns
+    assert not out[R:].any() and not out[:, k:].any()
 
 
-def test_masked_rhs_matches_einsum(rng):
-    R, S, K = BLOCK_R, 1024, 64
-    X = jnp.asarray(
-        np.round(rng.uniform(1, 10, size=(R, S))) / 2, jnp.bfloat16
-    )
-    _, Be, W = _mk(rng, R, S, K, True)
-    mb = jnp.asarray(rng.normal(size=S), jnp.float32)
-    out = masked_rhs(X, W, mb, Be, block_s=1024, interpret=INTERP)
-    V = (X.astype(jnp.float32) - mb[None, :]) * W.astype(jnp.float32)
-    ref = jnp.einsum("rs,sk->rk", V, Be)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               rtol=1e-4, atol=1e-3)
+@pytest.mark.parametrize("op_dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("w_dtype", [jnp.int8, jnp.bfloat16, jnp.float32])
+def test_masked_rhs_matches_einsum(rng, w_dtype, op_dtype):
+    R, S, k = 70, 200, 20
+    (_, Bd, Wd), (_, Be, W) = _padded_problem(rng, R, S, k, w_dtype,
+                                              op_dtype)
+    X = np.round(rng.uniform(1, 10, size=(R, S))) / 2  # exact in bf16
+    Xd = jnp.zeros(Wd.shape, jnp.bfloat16).at[:R, :S].set(
+        jnp.asarray(X, jnp.bfloat16))
+    mb = np.zeros(Bd.shape[0])
+    mb[:S] = rng.normal(size=S)
+    out = np.asarray(masked_rhs(Xd, Wd, jnp.asarray(mb, jnp.float32), Bd))
+    ref = np.asarray(jnp.einsum(
+        "rs,sk->rk", jnp.asarray((X - mb[None, :S]) * W, jnp.float32),
+        jnp.asarray(Be, jnp.float32), precision=HI))
+    err = np.linalg.norm(out[:R, :k] - ref) / np.linalg.norm(ref)
+    assert err <= TOL[op_dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [jnp.int8, jnp.bfloat16, jnp.float32])
+def test_kernels_compiled_for_the_card(gpu, rng, w_dtype):
+    """The Triton kernels as compiled for the card (not interpreted)
+    against the f32 HIGHEST reference, at a width that splits the
+    streamed axis."""
+    (Qd, Bd, Wd), (Q, Be, W) = _padded_problem(rng, 700, 3000, 50, w_dtype,
+                                               jnp.bfloat16)
+    out = np.asarray(masked_gram_matvec(Qd, Bd, Wd))[:700, :50]
+    ref = ((Q @ Be.T) * W) @ Be
+    assert np.linalg.norm(out - ref) / np.linalg.norm(ref) <= 1e-2
+    Xd = jnp.asarray(Wd, jnp.bfloat16)
+    mb = jnp.zeros(Bd.shape[0], jnp.float32)
+    out = np.asarray(masked_rhs(Xd, Wd, mb, Bd))[:700, :50]
+    ref = (W * W) @ Be
+    assert np.linalg.norm(out - ref) / np.linalg.norm(ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dim", [1, 60, 513, 10677, 69878])
+@pytest.mark.parametrize("row_mult", [1, 4, 8])
+def test_pad_dim_constraints(dim, row_mult):
+    padded = pad_dim(dim, row_mult=row_mult)
+    assert padded >= dim
+    # row axis: whole row blocks on every device of the mesh
+    assert (padded // row_mult) % BLOCK_R == 0
+    # streamed axis: whole tiles at the largest split
+    assert padded % (BLOCK_S * MAX_SPLIT) == 0
+    # minimal: one step less would not hold dim
+    step = int(np.lcm(BLOCK_R * row_mult, BLOCK_S * MAX_SPLIT))
+    assert padded - step < dim
+
+
+@pytest.mark.parametrize("k,expect", [(1, 64), (50, 64), (64, 64),
+                                      (65, 128), (100, 128), (150, 256)])
+def test_pad_k_power_of_two(k, expect):
+    assert pad_k(k) == expect
+
+
+@pytest.fixture
+def h100_sms(monkeypatch):
+    """The split rule as on an H100 (132 SMs); interpret mode has none."""
+    monkeypatch.setattr(masked_matmul, "_sm_count", lambda: 132)
+
+
+def test_split_fills_short_row_axis(h100_sms):
+    """A short row axis splits the streamed axis so the card still gets
+    enough programs; a long one does not split; the split always divides
+    the streamed axis into whole tiles."""
+    long_r, short_r = pad_dim(69878), pad_dim(10677)
+    assert masked_matmul._split(long_r, short_r) == 1
+    s = masked_matmul._split(short_r, long_r)
+    assert 1 < s <= MAX_SPLIT
+    assert long_r % (BLOCK_S * s) == 0
+    assert masked_matmul._split(BLOCK_R, BLOCK_S) == 1
+
+
+def test_split_needs_sms():
+    """In interpret mode there is no card to fill: one program per row
+    block."""
+    assert masked_matmul._sm_count() == 0
+    assert masked_matmul._split(pad_dim(10677), pad_dim(69878)) == 1
+
+
+def test_matvec_split_matches_unsplit(rng, h100_sms, monkeypatch):
+    """Partial sums over a split streamed axis add up to the one-pass
+    result."""
+    R, S, K = pad_dim(100), pad_dim(1000), 64
+    Q = jnp.asarray(rng.normal(size=(R, K)), jnp.bfloat16)
+    Be = jnp.asarray(rng.normal(size=(S, K)), jnp.bfloat16)
+    W = jnp.asarray(rng.uniform(size=(R, S)) < 0.3, jnp.int8)
+    assert masked_matmul._split(R, S) > 1
+    jax.clear_caches()
+    split = np.asarray(masked_gram_matvec(Q, Be, W))
+    monkeypatch.setattr(masked_matmul, "_split", lambda R, S: 1)
+    jax.clear_caches()
+    whole = np.asarray(masked_gram_matvec(Q, Be, W))
+    np.testing.assert_allclose(split, whole, rtol=1e-4, atol=1e-3)
+
+
+def test_kernel_rejects_unpadded_shapes():
+    bf = jnp.bfloat16
+    Q = jnp.ones((BLOCK_R + 1, 64), bf)
+    Be = jnp.ones((pad_dim(10), 64), bf)
+    W = jnp.ones((BLOCK_R + 1, Be.shape[0]), jnp.int8)
+    with pytest.raises(ValueError, match="unpadded"):
+        masked_gram_matvec(Q, Be, W)
+    with pytest.raises(ValueError, match="unpadded"):
+        masked_gram_matvec(jnp.ones((BLOCK_R, 51), bf),
+                           jnp.ones((BLOCK_S, 51), bf),
+                           jnp.ones((BLOCK_R, BLOCK_S), jnp.int8))
+    with pytest.raises(ValueError, match="unpadded"):
+        masked_rhs(W, W, jnp.zeros(Be.shape[0]), Be)
 
 
 def test_dense_pallas_fit_matches_xla_engine(rng):
@@ -96,7 +218,7 @@ def test_dense_pallas_fit_matches_xla_engine(rng):
                                scale_lam=False, nonneg=False)
     res_p = fit_explicit_dense_pallas(
         ro, co, vals, m, n, finalize_steps=30, biasA0=bA, biasB0=bB,
-        interpret=INTERP, **common,
+        **common,
     )
     res_x = drivers._fit_explicit_dense(
         ro, co, (vals - mu).astype(np.float32), m, n,
@@ -141,7 +263,7 @@ def test_collective_dense_pallas_matches_bucketed(rng):
         niter=15, max_cg_steps=3, finalize_chol=True, finalize_steps=25,
         user_bias=True, item_bias=True, glob_mean=mu, scale_lam=False,
         scale_bias_const=False, dtype=np.float32, seed=5, verbose=False,
-        interpret=True,
+       
     )
     res_b = fit_collective_explicit_als(
         ro, co, vals, m, n,
@@ -201,7 +323,7 @@ def test_collective_dense_pallas_implicit_features(rng, with_side, scale_lam):
         niter=15, max_cg_steps=3, finalize_chol=True, finalize_steps=25,
         user_bias=True, item_bias=True, glob_mean=mu, scale_lam=scale_lam,
         scale_bias_const=False, dtype=np.float32, seed=5, verbose=False,
-        interpret=True, add_implicit_features=True, w_implicit=0.5,
+        add_implicit_features=True, w_implicit=0.5,
     )
     res_b = fit_collective_explicit_als(
         ro, co, vals, m, n,
@@ -266,7 +388,7 @@ def test_collective_dense_pallas_implicit_one_iter_trajectory(rng):
         lam6=np.full(6, 0.5), w_user=1.0, w_item=1.0, max_cg_steps=3,
         finalize_chol=True, finalize_steps=40, glob_mean=0.0,
         scale_lam=False, scale_bias_const=False, verbose=False,
-        interpret=True, add_implicit_features=True, w_implicit=0.5,
+        add_implicit_features=True, w_implicit=0.5,
         init=dict(A=A0, B=B0), **kw)
     for key, tol in (("Bi", 1e-5), ("Ai", 1e-5), ("B", 0.05), ("A", 0.05)):
         b = np.asarray(res_b[key], np.float64)[:, :k]
@@ -296,7 +418,7 @@ def test_dense_na0_matches_bucketed(rng):
         niter=30, max_cg_steps=3, finalize_chol=False, finalize_steps=10,
         user_bias=True, item_bias=True, glob_mean=mu, scale_lam=False,
         scale_bias_const=False, biasA0=None, biasB0=None,
-        dtype=np.float32, seed=3, verbose=False, interpret=True,
+        dtype=np.float32, seed=3, verbose=False,
         na_as_zero=True,
     )
     # compare full predicted matrices (na0 defines them everywhere)
@@ -338,7 +460,7 @@ def test_dense_implicit_matches_bucketed(rng):
         rows, cols, vals, m, n, k=k, lam6=np.full(6, 2.0), niter=1,
         max_cg_steps=3, finalize_steps=30, finalize_chol=True, alpha=0.5,
         w_main_multiplier=w_mult, dtype=np.float32,
-        seed=1, verbose=False, interpret=True, init=init,
+        seed=1, verbose=False, init=init,
     )
     np.testing.assert_allclose(np.asarray(rp["A"]), np.asarray(rb["A"]),
                                rtol=0, atol=5e-3)
@@ -400,7 +522,7 @@ def test_dense_collective_implicit_matches_numpy(rng):
         k=k, lam6=np.full(6, lam), w_user=wu, w_item=1.0, niter=1,
         max_cg_steps=3, finalize_steps=30, finalize_chol=True, alpha=alpha,
         w_main_multiplier=1.0, dtype=np.float32, seed=1, verbose=False,
-        interpret=True, init=dict(A=A0, B=B0),
+        init=dict(A=A0, B=B0),
     )
     np.testing.assert_allclose(np.asarray(rp["B"], np.float64), B1,
                                rtol=0, atol=1e-4)

@@ -202,7 +202,7 @@ def test_dense_pallas_fit_sharded_matches_single(rng):
         finalize_chol=True, finalize_steps=20, user_bias=True,
         item_bias=True, glob_mean=float(vals.mean()), scale_lam=False,
         scale_bias_const=False, biasA0=None, biasB0=None,
-        dtype=np.float32, seed=3, verbose=False, interpret=True,
+        dtype=np.float32, seed=3, verbose=False,
     )
     r1 = fit_explicit_dense_pallas(ro, co, vals, m, n, **common)
     mesh = make_mesh(8)
@@ -230,7 +230,7 @@ def test_dense_pallas_exact_sharded_matches_single(rng):
         finalize_chol=True, finalize_steps=20, user_bias=True,
         item_bias=True, glob_mean=float(vals.mean()), scale_lam=False,
         scale_bias_const=False, biasA0=None, biasB0=None,
-        dtype=np.float32, seed=3, verbose=False, interpret=True,
+        dtype=np.float32, seed=3, verbose=False,
         exact=True,
     )
     r1 = fit_explicit_dense_pallas(ro, co, vals, m, n, **common)
@@ -280,7 +280,7 @@ def test_non_power_of_two_mesh(problem):
 
 
 def test_sharded_opposing_matrix_halfstep(problem):
-    """P7 / big-axis scaling: when n*k outgrows one device's HBM the
+    """P7 / big-axis scaling: when n*k outgrows one device's memory the
     opposing matrix B can be ROW-SHARDED over the mesh instead of
     replicated; the gather then rides an XLA collective and the half-step
     result is unchanged (SURVEY §2.4 P7, shard_opposing)."""
@@ -462,7 +462,7 @@ def test_ring_never_materializes_opposing():
 
 
 # ----------------------------------------------------------------------- #
-# Big-axis mode for the COLLECTIVE drivers (VERDICT r3 item 6)             #
+# Big-axis mode for the COLLECTIVE drivers                                 #
 # ----------------------------------------------------------------------- #
 
 

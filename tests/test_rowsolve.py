@@ -1,8 +1,8 @@
 """Oracle tests for the batched row solvers vs naive NumPy implementations.
 
 Follows the reference's test_math pattern (/root/reference/test_math/
-test_closed_form.py): build small random problems, solve with the TPU
-kernels, compare against direct NumPy linear solves and
+test_closed_form.py): build small random problems, solve with the batched
+device kernels, compare against direct NumPy linear solves and
 scipy.optimize-verified constrained solutions.
 """
 
